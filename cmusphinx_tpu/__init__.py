@@ -1,7 +1,7 @@
-"""cmusphinx_tpu — a TPU-native (JAX/XLA/Pallas) Sphinx-class speech recognition framework.
+"""cmusphinx_tpu — a JAX/XLA/Pallas Sphinx-class speech recognition framework.
 
 A from-scratch reimplementation of the capabilities of the CMU Sphinx ecosystem
-(PocketSphinx, Sphinx-3, SphinxTrain, cmuclmtk) designed TPU-first:
+(PocketSphinx, Sphinx-3, SphinxTrain, cmuclmtk) designed for an accelerator:
 
 - MFCC/cepstral frontend as batched, fused XLA programs (framing, FFT, mel
   filterbank, DCT, CMN/AGC, deltas, LDA/MLLT).

@@ -41,8 +41,8 @@ from .models.mdef import Mdef
 from .models.ngram import NgramModel
 from .models.sendump import read_mixture_weights, read_sendump
 from .models.tmat import TransitionMatrices
-from .ops.gmm import (ContinuousScorer, PsParityScorer, PTMScorer,
-                      SemiContinuousScorer)
+from .ops.gmm import (GEMM_PRECISIONS, ContinuousScorer, PsParityScorer,
+                      PTMScorer, SemiContinuousScorer)
 from .utils.config import Arg, Config
 
 DECODER_ARGS = [
@@ -80,11 +80,11 @@ DECODER_ARGS = [
         "Use the bit-faithful reference senone scorer for sendump models"),
     Arg("topn", int, 4, "Number of top Gaussians to use in scoring"),
     Arg("gmmprec", str, "highest",
-        "Continuous-GMM GEMM precision: highest (6-pass f32), high "
-        "(3-pass bf16x3, the recommended serving mode - hypothesis-"
-        "identical on the eval models), or bf16 (one MXU pass; UNSAFE "
-        "for floored-variance models - verify WER per model, see "
-        "ops/gmm.py GEMM_PRECISIONS and evals/run_pallas_e2e.py)"),
+        "Continuous-GMM GEMM precision: highest (IEEE f32), high (bf16x3: "
+        "each f32 operand split into two bf16 parts, three bf16 products "
+        "summed in f32; a few nats at floored-variance magnitudes), or "
+        "bf16 (one bf16 product; UNSAFE for floored-variance models - "
+        "verify WER per model).  See ops/gmm.py GEMM_PRECISIONS"),
     Arg("samprate", float, 16000.0, "Sampling rate"),
 ]
 
@@ -101,6 +101,10 @@ class Decoder:
         cfg.register(FSG_ARGS)
         cfg.update(**kwargs)
         self.config = cfg
+        if str(cfg["gmmprec"]) not in GEMM_PRECISIONS:
+            raise ValueError(f"-gmmprec must be one of "
+                             f"{sorted(GEMM_PRECISIONS)}, got "
+                             f"{cfg['gmmprec']!r}")
         hmm = str(cfg["hmm"])
 
         def model_file(key: str, name: str) -> str:

@@ -1,4 +1,4 @@
-"""FSG (grammar) decoder: dense time-synchronous Viterbi on TPU.
+"""FSG (grammar) decoder: dense time-synchronous Viterbi on the device.
 
 Capability parity with fsg_search.c / fsg_lextree.c / fsg_history.c
 (reference: pocketsphinx/src/libpocketsphinx/fsg_search.c:118-146 beams,

@@ -6,7 +6,7 @@ pocketsphinx/src/libpocketsphinx/ngram_search_fwdtree.c:67-149 mpx root
 channels, ngram_search.c:534 ngram_search_alloc_all_rc,
 dict2pid.h:133-180 ldiph_lc/lrdiph_rc/rssid compressed tables;
 sphinx3/src/libs3decoder/libsearch/lextree.c composite cross-word
-triphones) with a flat channel table designed for dense TPU evaluation:
+triphones) with a flat channel table designed for dense device evaluation:
 
 - **mpx left contexts**: each word-begin channel is multiplexed — its senone
   sequence is an int payload (an "xs row" id) that rides the Viterbi argmax
@@ -35,7 +35,8 @@ Senone lookup is factored through the **xs table**: a deduplicated list of
 score is the max over members (regular ssids are singleton sets).  Rows are
 ordered singletons-first so the per-frame evaluation is two vectorized
 gathers and a concat — `[scores[sing_sen]; max_u scores[comp_mem]]` — with
-NO scatter/segment ops (TPU scatters serialize; gathers vectorize).  For the
+NO scatter/segment ops (scatters serialize on conflicting writes; gathers
+do not).  For the
 same reason within-word propagation is a per-channel `prev_chan` gather
 (every channel has in-degree <= 1 once word-begin channels are multiplexed),
 not an edge-list scatter-max.

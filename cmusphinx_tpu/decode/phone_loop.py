@@ -6,7 +6,7 @@ pocketsphinx/src/libpocketsphinx/phone_loop_search.c; consulted by the
 fwdtree/fsg searches via phone_loop_search_score with a -pl_window frame
 window and -pl_beam/-pl_pbeam penalties, ngram_search_fwdtree.c:1390-1420).
 
-TPU-first formulation: all CI-phone HMMs run as ONE batched [n_ci, S]
+Batched formulation: all CI-phone HMMs run as ONE batched [n_ci, S]
 `hmm_step` inside a `lax.scan`; the loop re-entry (every phone can follow
 every phone with penalty pip) is a per-frame max over exit scores — no
 active lists.  The whole utterance's heuristic is one device program:

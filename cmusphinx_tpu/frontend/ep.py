@@ -6,7 +6,7 @@ GMM-based frame classifier into silence/owner-speech/secondary-speech/noise
 feeding a begin/end state machine; `main_ep` tool).  Complements the
 energy-based VAD in frontend.vad (cont_ad capability).
 
-TPU-first: classification of ALL frames is one batched Gaussian-mixture
+Batched: classification of ALL frames is one batched Gaussian-mixture
 log-likelihood evaluation (same matmul+LSE formulation as ops.gmm) — the
 per-frame scalar loop of classify.c becomes a single [T, D] @ [D, C*K]
 program.  The classifier can be fit from labeled frames with a few EM

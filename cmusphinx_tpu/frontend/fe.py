@@ -1,11 +1,11 @@
-"""Signal frontend: waveform -> MFCC, batched for TPU.
+"""Signal frontend: waveform -> MFCC, batched on the device.
 
 Capability parity with sphinxbase fe (reference:
 sphinxbase/src/libsphinxbase/fe/fe_interface.c:203 `fe_init_auto_r`,
 fe_sigproc.c:304 `fe_build_melfilters`, :430 `fe_compute_melcosine`,
 :470 pre-emphasis, :535 Hamming window, :892 `fe_spec_magnitude`,
 :937 `fe_mel_spec`, :1025 `fe_spec2cep` / :1045 `fe_dct2` / :1083 `fe_dct3`)
-— but reformulated TPU-first: the whole per-utterance pipeline is one fused
+— but reformulated for an accelerator: the whole per-utterance pipeline is one fused
 XLA program: global pre-emphasis, strided framing as a gather, window
 multiply, batched rFFT, power spectrum, mel filterbank as a single
 `[nbins, nfilt]` matmul, log, DCT as a `[nfilt, ncep]` matmul, liftering.

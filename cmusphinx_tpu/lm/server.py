@@ -7,7 +7,7 @@ words; the reply is the log10 probability of the LAST word given the
 preceding ones (backoff n-gram), or `-inf` for an unknown word.  The
 client keeps an LRU cache like the reference's.
 
-The HBM-resident hashed backend (models/ngram_device.py) is the
+The device-resident hashed backend (models/ngram_device.py) is the
 in-process home for production LMs; this module exists for ecosystem
 parity — decoders on other hosts (or the reference's own sphinx4
 configured with a NetworkLanguageModel) can score against a model served

@@ -8,7 +8,7 @@ s3_cfg_convert.c:24 s3_cfg_convert_to_fsg — regular approximation by
 bounded recursive expansion of each rule into FSG states — and the
 `cfg2fsg` program).
 
-The TPU-side consumer is FsgSearch: a CFG/SRGS grammar compiles to an
+The device-side consumer is FsgSearch: a CFG/SRGS grammar compiles to an
 FsgModel whose links become dense triphone channel tables, so grammar
 decoding runs the same fused Viterbi scan as hand-written FSGs.
 """

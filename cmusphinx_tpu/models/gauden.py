@@ -5,7 +5,7 @@ Reader for the format consumed by ms_gauden.c:179 `gauden_param_read`
 int32 n_mgau, n_feat, n_density, veclen[n_feat], total float count, and the
 flat float32 parameter block laid out [n_mgau][n_feat][n_density][veclen_f].
 
-On load we precompute what the TPU scoring kernels need (dense float32
+On load we precompute what the device scoring kernels need (dense float32
 arrays, padded across streams to max veclen):
 
 - means  [n_mgau, n_feat, n_density, maxlen]
@@ -13,7 +13,7 @@ arrays, padded across streams to max veclen):
 - lrd    [n_mgau, n_feat, n_density]          log reciprocal sqrt((2pi)^d |var|)
 
 so the log Gaussian density is `lrd - sum(prec * (x - mean)^2)` — a fused
-multiply-add reduction that XLA maps onto the MXU via the identity
+multiply-add reduction that becomes matrix products via the identity
 sum(prec*(x-m)^2) = sum(prec*x^2) - 2*sum(prec*m*x) + sum(prec*m^2)
 (see ops/gmm.py).  Variance flooring matches gauden_dist_precompute
 (ms_gauden.c:304): var < floor -> floor.

@@ -6,8 +6,8 @@ switching; ngram_model.c:469 ngram_model_add_class; sphinx3 liblm/lmclass.c
 probdef reader) — class tags like `[a_class]` in the LM expand over member
 words with in-class probabilities.
 
-Expansion is done eagerly into a concrete `NgramModel` (the TPU decoder
-wants flat CSR tables in HBM; classes are small, so the expansion is
+Expansion is done eagerly into a concrete `NgramModel` (the device decoder
+wants flat CSR tables in device memory; classes are small, so the expansion is
 cheap) rather than per-query indirection as in the reference.
 """
 

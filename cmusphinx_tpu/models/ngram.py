@@ -6,7 +6,7 @@ ngram_model_arpa.c text reader/writer, ngram_model_dmp.c:79-430 binary
 "Darpa Trigram LM" reader, lm3g_templates.c:46-260 scoring semantics,
 lm3g_model.h:107-121 trigram segment scheme).
 
-Storage is TPU-friendly CSR (SURVEY.md §7 "Trigram LM on device"): sorted
+Storage is device-friendly CSR (SURVEY.md §7 "Trigram LM on device"): sorted
 successor arrays + row pointers, probabilities as float32 natural log:
 
 - ug_prob/ug_bo [V]
@@ -154,7 +154,6 @@ class NgramModel:
     # --- ARPA ----------------------------------------------------------
     @classmethod
     def read_arpa(cls, path: str) -> "NgramModel":
-        m = cls()
         grams: Dict[int, List[Tuple]] = {1: [], 2: [], 3: []}
         counts: Dict[int, int] = {}
         order = 0
@@ -186,6 +185,14 @@ class NgramModel:
                     ws = parts[1 : 1 + order]
                     bo = float(parts[1 + order]) if len(parts) > 1 + order else 0.0
                     grams[order].append((prob, tuple(ws), bo))
+        return cls.from_grams(grams)
+
+    @classmethod
+    def from_grams(cls, grams: Dict[int, List[Tuple]]) -> "NgramModel":
+        """Build from ARPA-style entries: grams[order] is a list of
+        (log10 prob, word tuple, log10 backoff); unigrams define the
+        vocabulary."""
+        m = cls()
         m.n = max(k for k, v in grams.items() if v) if any(grams.values()) else 1
         # Unigrams define the vocabulary.
         for prob, (w,), bo in grams[1]:
@@ -199,7 +206,7 @@ class NgramModel:
             i = m.wid[w]
             m.ug_prob[i] = prob * LOG10
             m.ug_bo[i] = bo * LOG10
-        m._build_csr(grams[2], grams[3])
+        m._build_csr(grams.get(2, []), grams.get(3, []))
         return m
 
     def _build_csr(self, bgs, tgs) -> None:

@@ -5,7 +5,7 @@ pocketsphinx/src/libpocketsphinx/tmat.c:191-293 `tmat_init`): s3 header, then
 int32 n_tmat, n_src, n_dst (= n_src+1), count, and float32 probabilities
 [n_tmat][n_src][n_dst].  Rows are sum-normalized, nonzero-floored, and
 re-normalized, then stored as *natural-log* float32 (the reference quantizes
-to uint8 in its integer log domain; on TPU we keep float log space — scores
+to uint8 in its integer log domain; here we keep float log space — scores
 are floats everywhere).
 
 Topology check mirrors tmat_chk_uppertri / tmat_chk_1skip (tmat.c:116-172):

@@ -1,4 +1,4 @@
-"""Approximate-GMM evaluation family, dense/masked TPU formulations.
+"""Approximate-GMM evaluation family, dense/masked device formulations.
 
 The reference's fast-GMM layer (sphinx3
 libs3decoder/libam/approx_cont_mgau.c:108-276) combines four tricks to
@@ -13,14 +13,14 @@ avoid evaluating every Gaussian of every senone on a scalar CPU:
 - Gaussian shortlists from sub-vector quantization (subvq.c — see
   ops/subvq.py) or VQ Gaussian selectors (gs.c) or kd-trees (kdtree.c).
 
-On TPU the dense evaluation is a pair of GEMMs, so selective evaluation
-saves nothing unless it removes whole GEMM rows/frames.  This module
-provides the two tricks that CAN change TPU cost or accuracy —
+On the device the dense evaluation is a pair of GEMMs, so selective
+evaluation saves nothing unless it removes whole GEMM rows/frames.  This
+module provides the two tricks that CAN change device cost or accuracy —
 downsampling (removes frames: real FLOP savings) and CIGMMS (masking
 only: zero savings in the dense regime, kept for behavior parity) — in
 exact masked/dense form, so `evals/run_approx_gmm.py` can measure each
 trick's speed/WER trade on a real model and record the keep/reject
-verdict (EVALS.md).
+verdict.
 """
 
 from __future__ import annotations
@@ -63,9 +63,9 @@ class CigmmsScorer:
 
     Dense formulation: both CI and CD scores are computed (the GEMM does
     not get cheaper by masking), then the bypass is applied exactly — so
-    this measures the ACCURACY cost of the trick at zero TPU speed gain,
-    which is the verdict the reference's trade-off must be re-judged by
-    on this hardware.
+    this measures the ACCURACY cost of the trick at zero device speed
+    gain, which is the verdict the reference's trade-off must be re-judged
+    by on an accelerator.
 
     cd2cisen: [n_sen] parent CI senone per senone (mdef.cd2cisen;
     CI senones map to themselves).
@@ -99,7 +99,7 @@ class GsSelectorScorer:
     frame to its nearest cluster; only Gaussians associated with that
     cluster (assignment by their means) are evaluated exactly — the rest
     take a floor.  Dense-masked formulation: the full density matrix is
-    computed (GEMMs don't get cheaper from masking on TPU) and
+    computed (GEMMs don't get cheaper from masking) and
     non-shortlisted Gaussians are floored, measuring the trick's accuracy
     cost at its reference semantics.
 
@@ -140,10 +140,7 @@ class GsSelectorScorer:
         thr = -jax.lax.top_k(-d2, self.top_c)[0][:, -1:]
         keep_c = d2 <= thr                                      # [T, C]
         keep = keep_c[:, self._assign]                          # [T, S, K]
-        ll = (self.inner.const[None, :]
-              + jnp.dot(feats, self.inner.lin)
-              - jnp.dot(feats * feats, self.inner.quad)
-              ).reshape(feats.shape[0], self._S, self._K)
+        ll = self.inner.densities(feats)                        # [T, S, K]
         best = jnp.max(ll, axis=(1, 2), keepdims=True)
         ll = jnp.where(keep, ll, best + self.floor)
         return jax.nn.logsumexp(ll, axis=-1)
@@ -162,11 +159,11 @@ class KdTreeSelectorScorer:
     intersects the bucket.  At eval a frame descends the tree by `depth`
     scalar comparisons and only its bucket's shortlist is scored.
 
-    Dense-masked TPU formulation, like the rest of this family: the full
-    density GEMM is computed (masking saves nothing on the MXU), the
+    Dense-masked formulation, like the rest of this family: the full
+    density GEMM is computed (masking saves nothing in a GEMM), the
     descent is `depth` vectorized compares, and non-shortlisted Gaussians
     are floored — measuring the trick's accuracy cost at its reference
-    semantics so EVALS.md can record the keep/reject verdict.
+    semantics for the keep/reject verdict.
 
     scorer: a ContinuousScorer (single-stream).  depth: tree depth
     (2^depth buckets; reference -kdmaxdepth).  radius: box half-width in
@@ -250,10 +247,7 @@ class KdTreeSelectorScorer:
             idx = 2 * idx + go.astype(jnp.int32)
         leaf = idx - self._n_nodes
         keep = self._leaf_keep[leaf]                         # [T, S, K]
-        ll = (self.inner.const[None, :]
-              + jnp.dot(feats, self.inner.lin)
-              - jnp.dot(feats * feats, self.inner.quad)
-              ).reshape(feats.shape[0], self._S, self._K)
+        ll = self.inner.densities(feats)                        # [T, S, K]
         best = jnp.max(ll, axis=(1, 2), keepdims=True)
         ll = jnp.where(keep, ll, best + self.floor)
         return jax.nn.logsumexp(ll, axis=-1)

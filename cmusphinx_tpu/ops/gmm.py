@@ -2,7 +2,7 @@
 
 This replaces the reference's scalar hot loops (SURVEY.md §3.2: eval_topn /
 eval_cb in s2_semi_mgau.c:81-180, senone logadd :217-530; ptm_mgau.c:99-260;
-sphinx3 cont_mgau.c:1174 mgau_eval) with dense MXU-friendly programs.
+sphinx3 cont_mgau.c:1174 mgau_eval) with dense batched programs.
 
 Key reformulation: the log Gaussian density
 
@@ -10,14 +10,13 @@ Key reformulation: the log Gaussian density
 
 expands to `const[k] + x_t . lin[k] - (x_t*x_t) . prec[k]`, i.e. two matmuls
 [T, D] @ [D, K] — the Mahalanobis distance for ALL codewords and ALL frames
-is a pair of GEMMs on the MXU.  The senone mixture then uses the
-exp-normalize trick: with per-frame density max m_t,
+is a pair of GEMMs.  The senone mixture then uses the exp-normalize trick:
+with per-frame density max m_t,
 
     score[t, s] = log( sum_k exp(ll[t,k] - m_t) * w[k,s] ) + m_t
 
 where the inner sum is again a single GEMM [T, K] @ [K, S] in linear space.
-So semi-continuous senone scoring = 3 matmuls + 1 log.  No top-N shortlist
-needed — the dense exact computation is *faster* on TPU than bookkeeping a
+So semi-continuous senone scoring = 3 matmuls + 1 log, with no top-N
 shortlist (the reference's top-4 is an approximation born of scalar CPUs).
 A `topn` option reproduces the reference's shortlisting for parity tests.
 
@@ -26,8 +25,8 @@ Scorers return natural-log senone scores [T, n_sen].  Scores are exact
 Viterbi paths and beams are invariant to per-frame constants.
 
 All scorers are stateless pytrees of device arrays; `score()` is pure and
-jit/vmap/pjit-compatible.  For multi-chip serving, shard the senone axis of
-the mixture-weight table (S is the large dimension) with
+jit/vmap/pjit-compatible.  For multi-device serving, shard the senone axis
+of the mixture-weight table (S is the large dimension) with
 `NamedSharding(mesh, P(None, "mp"))` — the [T,K]@[K,S] GEMM then runs fully
 sharded with no collectives until the final per-frame max (SURVEY.md §2.10 P5).
 """
@@ -35,36 +34,38 @@ sharded with no collectives until the final per-frame max (SURVEY.md §2.10 P5).
 from __future__ import annotations
 
 import functools
-from typing import List, Optional, Sequence
+from typing import List, Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-# GMM log-densities are numerically sensitive: JAX's default matmul precision
-# truncates f32 operands (bf16-ish), costing ~0.02-0.1 absolute in log space —
-# enough to flip near-tie Viterbi paths.  All scoring GEMMs request full f32.
+# GMM log-densities are numerically sensitive: a reduced-precision matmul
+# (bf16 or TF32 operands) costs ~0.02-0.1 absolute in log space — enough to
+# flip near-tie Viterbi paths.  All scoring GEMMs request full f32.
 HIGHEST = jax.lax.Precision.HIGHEST
 
-# Serving-precision ladder for the continuous scorer (-gmmprec).  On TPU an
-# f32 matmul under HIGHEST runs as ~6 bf16 MXU passes; "high" splits each
-# operand into bf16 hi+lo (3 passes, ~2^-19 operand precision); "bf16"
-# stores parameters in bfloat16 and runs ONE pass with f32 accumulation.
-# Measured at hub4 scale (S=5150, K=32, Pallas kernel, evals/mfu_report.py):
-# highest 43 ms, high 34 ms, bf16 29 ms.  CAUTION on bf16: the expanded
-# quadratic form cancels prec*mean^2-magnitude terms, and real trained GMMs
-# have floored variances that push those terms to ~1e6 nats — single-pass
-# bf16's 2^-9 operand rounding then leaves THOUSANDS of nats of density
-# error (measured: 16205 nats max, WER 0% -> 19.6% on the tidigits CD
-# model), while "high" stays hypothesis-identical (evals/run_pallas_e2e.py).
-# "high" is the recommended serving mode; "bf16" only for models whose
-# prec/mean magnitudes are verified benign.  "highest" stays the default —
-# precision is opt-in serving configuration, like the reference's own
-# quantized scoring modes (sendump 8/4-bit, s2_semi_mgau.c:889).
+# Serving-precision ladder for the continuous scorer (-gmmprec), as explicit
+# dot algorithms so that a mode means the same arithmetic on every backend
+# (Precision.HIGH would be TF32 on the GPU and bf16x3 elsewhere):
+# - "highest": IEEE f32 operands and accumulation;
+# - "high": each f32 operand split into bf16 hi + lo and three bf16 products
+#   (hi.hi + hi.lo + lo.hi) accumulated in f32, ~2^-16 relative operand
+#   error;
+# - "bf16": parameters stored in bfloat16 and one bf16 product with f32
+#   accumulation.
+# CAUTION on anything below "highest": the expanded quadratic form cancels
+# prec*mean^2-magnitude terms, and trained GMMs with floored variances push
+# those terms to ~1e6 nats.  A single bf16 pass (2^-8 operand rounding) then
+# leaves thousands of nats of density error, which took a floored-variance
+# CD model from 0% to 19.6% WER; TF32 (2^-11) would fail the same way.  "high"
+# keeps the error to a few nats at that magnitude.  "highest" stays the
+# default; precision is opt-in serving configuration, like the reference's
+# own quantized scoring modes (sendump 8/4-bit, s2_semi_mgau.c:889).
 GEMM_PRECISIONS = {
-    "highest": HIGHEST,
-    "high": jax.lax.Precision.HIGH,
-    "bf16": None,  # bf16 parameter storage + single MXU pass, f32 accum
+    "highest": jax.lax.DotAlgorithmPreset.F32_F32_F32,
+    "high": jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3,
+    "bf16": jax.lax.DotAlgorithmPreset.BF16_BF16_F32,
 }
 
 from ..models.gauden import GaussianParams
@@ -149,12 +150,12 @@ class ContinuousScorer:
     capability): one codebook per senone.
 
     means/prec: [S, K, D]; ln_mixw: [S, K] (single stream) ->
-    score[t,s] = logsumexp_k( lnw[s,k] + ll[t,s,k] ).
+    score[t,s] = logsumexp_k( lnw[s,k] + ll[t,s,k] ), computed as one GEMM
+    of the augmented features [x, x*x] against w = [lin; -quad] [2D, S*K].
     """
 
     def __init__(self, gauden: GaussianParams, ln_mixw: np.ndarray,
-                 topn: int = 0, use_pallas: Optional[bool] = None,
-                 precision: str = "highest"):
+                 topn: int = 0, precision: str = "highest"):
         if gauden.n_feat != 1:
             raise ValueError("continuous scorer expects a single feature stream")
         if precision not in GEMM_PRECISIONS:
@@ -167,53 +168,28 @@ class ContinuousScorer:
         lnw = ln_mixw.reshape(S, K) if ln_mixw.ndim != 2 else ln_mixw
         # Fold mixture weights into the density constant term.
         const = (lrd + lnw - (prec * means * means).sum(-1))  # [S, K]
+        w = np.concatenate([(2.0 * prec * means).reshape(S * K, D).T,
+                            -prec.reshape(S * K, D).T])       # [2D, S*K]
         self.precision = precision
-        ptype = jnp.bfloat16 if precision == "bf16" else jnp.float32
-        self.lin = jnp.asarray(
-            (2.0 * prec * means).reshape(S * K, D).T, ptype)   # [D, S*K]
-        self.quad = jnp.asarray(prec.reshape(S * K, D).T, ptype)
-        self.const = jnp.asarray(const.reshape(S * K))         # f32 always
+        self.algorithm = GEMM_PRECISIONS[precision]
+        self.ptype = jnp.bfloat16 if precision == "bf16" else jnp.float32
+        self.w = jnp.asarray(w, self.ptype)
+        self.const = jnp.asarray(const.reshape(S * K), jnp.float32)
         self.n_sen, self.n_density = S, K
         self.topn = topn
-        if use_pallas is None:
-            from .pallas_gmm import pallas_available
-            # The fused kernel pays off once the [T, S*K] density matrix is
-            # big enough to be HBM-resident under XLA.
-            use_pallas = pallas_available() and topn == 0 and S * K >= 4096
-        self.use_pallas = bool(use_pallas) and topn == 0
-        if self.use_pallas:
-            from .pallas_gmm import pack_params
-            lin_p, quad_p, const_p, bs = pack_params(
-                np.asarray(self.lin, np.float32),
-                np.asarray(self.quad, np.float32),
-                np.asarray(self.const), S, K,
-                dtype=jnp.bfloat16 if precision == "bf16" else None)
-            self._packed = (jnp.asarray(lin_p), jnp.asarray(quad_p),
-                            jnp.asarray(const_p), bs)
+
+    def densities(self, feats) -> jnp.ndarray:
+        """Weighted log densities lnw + ll, feats [T, D] -> [T, S, K]."""
+        # Square in f32 first (x*x then round beats round(x)^2).
+        xa = jnp.concatenate([feats, feats * feats], -1).astype(self.ptype)
+        ll = self.const[None, :] + jnp.dot(
+            xa, self.w, precision=self.algorithm,
+            preferred_element_type=jnp.float32)
+        return ll.reshape(feats.shape[0], self.n_sen, self.n_density)
 
     def score(self, feats) -> jnp.ndarray:
         """feats [T, D] -> [T, S]."""
-        if self.use_pallas:
-            from .pallas_gmm import fused_mixture_scores_packed
-            lin_p, quad_p, const_p, bs = self._packed
-            return fused_mixture_scores_packed(
-                feats, lin_p, quad_p, const_p,
-                n_sen=self.n_sen, n_density=self.n_density, block_s=bs,
-                precision=self.precision)
-        if self.precision == "bf16":
-            # Square in f32 first (x*x then round beats bf16(x)^2), one bf16
-            # MXU pass per GEMM, f32 accumulation.
-            ll = (self.const[None, :]
-                  + jnp.dot(feats.astype(jnp.bfloat16), self.lin,
-                            preferred_element_type=jnp.float32)
-                  - jnp.dot((feats * feats).astype(jnp.bfloat16), self.quad,
-                            preferred_element_type=jnp.float32))
-        else:
-            prec = GEMM_PRECISIONS[self.precision]
-            ll = (self.const[None, :]
-                  + jnp.dot(feats, self.lin, precision=prec)
-                  - jnp.dot(feats * feats, self.quad, precision=prec))
-        ll = ll.reshape(feats.shape[0], self.n_sen, self.n_density)
+        ll = self.densities(feats)
         if self.topn:
             ll = _mask_topn(ll, self.topn)
         return jax.nn.logsumexp(ll, axis=-1)
@@ -336,9 +312,8 @@ class PsParityScorer:
         table8 = logadd8_table(logbase, shift)
         # The 256-entry logadd table is monotone non-increasing with a tiny
         # value range (0..~7), so table8[dd] is re-expressed as a sum of
-        # threshold comparisons sum_v [dd < t_v] — bit-exact, and ~14x
-        # faster than a [T, S] dynamic gather on TPU (gathers don't
-        # vectorize; compares ride the VPU).
+        # threshold comparisons sum_v [dd < t_v] — bit-exact, and an
+        # elementwise chain that fuses instead of a [T, S] dynamic gather.
         assert np.all(np.diff(table8) <= 0), "logadd table must be monotone"
         vmax = int(table8[0])
         self._tbl_steps = jnp.asarray(
@@ -360,7 +335,7 @@ class PsParityScorer:
         the lowest index on ties, and masking one index per round keeps
         duplicate values as separate entries — the reference's insertion
         sort does too, s2_semi_mgau.c:81-118), but runs as n max/argmax
-        VPU reductions instead of a full [T, K] sort."""
+        reductions instead of a full [T, K] sort."""
         iota = jnp.arange(d.shape[1], dtype=jnp.int32)[None, :]
         vals, idxs = [], []
         for _ in range(n):
@@ -370,15 +345,18 @@ class PsParityScorer:
             d = jnp.where(iota == am[:, None], jnp.iinfo(jnp.int32).min, d)
         return jnp.stack(vals, 1), jnp.stack(idxs, 1)
 
+    def int_densities(self, feats, f: int):
+        """Stream f's integer logmath densities [T, K]."""
+        x = feats[:, self.stream_slices[f]]
+        d = density_logliks(x, self.means[f], self.prec[f], self.lrd[f])
+        # Saturate before the int cast (the reference's float->int32
+        # overflow lands at INT_MIN on x86; these never reach the top-N).
+        return jnp.clip(d, -2.0e9, 0.0).astype(jnp.int32)  # C trunc-to-zero
+
     def _score_impl(self, feats):
         acc = None
         for f in range(self.n_feat):
-            x = feats[:, self.stream_slices[f]]
-            d = density_logliks(x, self.means[f], self.prec[f], self.lrd[f])
-            # Saturate before the int cast (the reference's float->int32
-            # overflow lands at INT_MIN on x86; these never reach the top-N).
-            d = jnp.clip(d, -2.0e9, 0.0)
-            d_int = d.astype(jnp.int32)                       # C trunc-to-zero
+            d_int = self.int_densities(feats, f)
             vals, idx = self._topn_select(d_int, self.topn)   # [T, N]
             norm = jnp.right_shift(vals[:, :1], self.shift)
             fsc = -(jnp.right_shift(vals, self.shift) - norm) # [T, N] >= 0

@@ -10,7 +10,7 @@ Gaussian is the sum of its codewords' distances — cheap to evaluate for ALL
 Gaussians — and only a shortlist within `beam` of the best is evaluated
 exactly.
 
-On TPU the exact dense evaluation is usually faster than shortlisting (see
+On the device the exact dense evaluation is usually faster than shortlisting (see
 ops/gmm.py), so this module's roles are (a) interop: read/write the
 reference's text subvq format (e.g. the shipped
 hub4_cd_continuous_8gau test.subvq), (b) the `gausubvq` builder capability,
@@ -200,7 +200,7 @@ def build_subvq(gauden: GaussianParams, n_sv: int = 3, vqsize: int = 256,
 
 class SubVQScorer:
     """Approximate continuous scorer via sub-vector codeword densities
-    (subvq_mgau_shortlist capability, dense TPU formulation).
+    (subvq_mgau_shortlist capability, dense device formulation).
 
     Per frame: codeword log densities per subvector ([T, n_sv*vqsize] via the
     two-GEMM trick), per-Gaussian approx = sum over subvectors of its

@@ -3,11 +3,12 @@
 The reference distributes training by launching N independent `bw -part i
 -npart N` processes (SphinxTrain bw/main.c:492-497 corpus_set_partition)
 from a Perl job queue (scripts_pl/lib/Queue/{POSIX,PBS}.pm) and reducing
-accumulator FILES with `norm`.  The TPU-native equivalent is one SPMD
-program: `jax.distributed.initialize()` joins the hosts, each host loads
-its ctl partition (the -part/-npart contract, re-used verbatim), devices
-form one global `jax.sharding.Mesh`, and the reduce is a `psum` over ICI
-within a slice / DCN across hosts — `norm`-over-NFS becomes a collective.
+accumulator FILES with `norm`.  The equivalent here is one SPMD program:
+`jax.distributed.initialize()` joins the hosts, each host loads its ctl
+partition (the -part/-npart contract, re-used verbatim), devices form one
+global `jax.sharding.Mesh`, and the reduce is a `psum` over the device
+links within a host and the network across hosts — `norm`-over-NFS
+becomes a collective.
 
 Single-host fallback: with no coordinator configured (and no multi-host
 environment detected) `init_distributed` is a no-op returning process
@@ -18,9 +19,9 @@ how this path is validated here: the dryrun partitions a corpus with
 mesh, and checks the psum'd result equals the single-pass accumulators.
 
 What real N-host validation still needs (not available in this
-environment): N processes each seeing only its local TPU slice, started
-with matching `--coordinator host:port --num-processes N --process-id i`
-(or TPU-pod env auto-detection), and a shared filesystem or object store
+environment): N processes each seeing only its local devices, started
+with matching `--coordinator host:port --num-processes N --process-id i`,
+and a shared filesystem or object store
 for checkpoints.  The code path below is exactly what those processes
 would run; only the transport (DCN) is unexercised.
 """
@@ -49,8 +50,8 @@ def init_distributed(coordinator: Optional[str] = None,
     """Join (or skip) the multi-host runtime.
 
     Explicit args win; otherwise standard env vars are consulted
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, and
-    jax's own TPU-pod auto-detection).  Returns the host's identity; on a
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID).
+    Returns the host's identity; on a
     single host this is a documented no-op (process 0 of 1).
     """
     import jax

@@ -4,13 +4,13 @@ Capability parity with SphinxTrain bw (reference:
 SphinxTrain/src/programs/bw/forward.c:179-640 scaled alpha pass,
 backward.c:308 fused beta + posterior accumulation, baum_welch.c:134-290,
 accum.c:323-500 accumulators, viterbi.c Viterbi-mode alignment) —
-reformulated TPU-first (SURVEY.md §7 step 8):
+reformulated for an accelerator (SURVEY.md §7 step 8):
 
 - log-space alpha/beta (no per-frame scaling needed; forward.c's
   gauden_scale_densities_fwd machinery disappears);
 - the sentence HMM's sparse transitions become a dense [S, S] log matrix
-  (sentence HMMs are small — a padded dense logsumexp matmul beats sparse
-  bookkeeping on this hardware);
+  (sentence HMMs are small — a padded dense logsumexp matmul replaces
+  sparse bookkeeping);
 - one `lax.scan` forward + one backward per utterance, `vmap`'d over a
   padded utterance batch; accumulators are summed per batch on device and
   reduced across devices with `psum` (replacing bw's accumulator files +
@@ -270,7 +270,7 @@ def forward_backward(batch: UttBatch, means, prec, lnw, log_tp,
         compn = comp_s - ll[..., None]                        # [T, S, K]
         r = g[..., None] * jnp.exp(jnp.maximum(compn, -60.0))
         # Time-reduce with GEMMs (no [T, S, K, D] materialization: the
-        # weighted-observation sums are einsums riding the MXU), THEN
+        # weighted-observation sums are einsums), THEN
         # scatter the small [S, K(, D)] per-state sums to senones.
         hp = jax.lax.Precision.HIGHEST
         rs = r.sum(0)                                         # [S, K]

@@ -4,7 +4,7 @@ Baum-Welch with extended-BW (EBW) parameter updates.
 Capability parity with SphinxTrain's MMIE mode (reference:
 SphinxTrain/src/programs/bw/main.c:1055-1500 lattice-based num/den
 accumulation; pipeline stages scripts_pl/60-65 lattice generation /
-pruning / MMIE training).  TPU-first formulation:
+pruning / MMIE training).  Batched formulation:
 
 - Numerator statistics = the ordinary transcript forward-backward
   (`bw.forward_backward`), exactly as in ML training.
@@ -15,7 +15,7 @@ pruning / MMIE training).  TPU-first formulation:
   competitor paths through that word).  All node-HMMs across all lattice
   nodes are packed into ONE padded batch and run as a single vmapped
   device program — the lattice structure is consumed on the host, the
-  FLOPs run dense on the MXU.
+  FLOPs run dense on the device.
 - Update = extended Baum-Welch with per-Gaussian smoothing constant
   D = max(E * den_occupancy, ml_floor) chosen per mixture so variances
   stay positive (standard EBW; main.c's -constE).

@@ -35,11 +35,20 @@ def _write_s3(path: str, version: str, body_arrays: List[np.ndarray],
 
 
 def write_gauden(means_path: str, vars_path: str, params: HmmParams) -> None:
-    """s3gau format: n_mgau, n_feat(=1), n_density, veclen, count, block."""
-    S, K, D = params.means.shape
-    count = S * 1 * K * D
-    _write_s3(means_path, "1.0", [params.means], [S, 1, K, D, count])
-    _write_s3(vars_path, "1.0", [params.var], [S, 1, K, D, count])
+    """s3gau format for one feature stream (continuous models)."""
+    write_gauden_streams(means_path, vars_path, params.means[:, None],
+                         params.var[:, None])
+
+
+def write_gauden_streams(means_path: str, vars_path: str, means: np.ndarray,
+                         var: np.ndarray) -> None:
+    """s3gau format: n_mgau, n_feat, n_density, veclen[n_feat], count, then
+    the block [n_mgau][n_feat][n_density][veclen] (streams of equal width,
+    e.g. a semi-continuous model's single codebook set over 3 streams)."""
+    M, F, K, D = means.shape
+    ints = [M, F, K] + [D] * F + [M * F * K * D]
+    _write_s3(means_path, "1.0", [means], ints)
+    _write_s3(vars_path, "1.0", [var], ints)
 
 
 def write_mixture_weights(path: str, params: HmmParams) -> None:

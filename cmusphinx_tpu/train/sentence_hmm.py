@@ -8,7 +8,7 @@ mk_sseq/state_seq libcommon) and mk_flat / mk_mdef_gen flat-start topology
 A sentence HMM is a linear chain of phone HMMs for the transcript's words,
 with *optional* silence between words and at the ends (bypass edges), each
 phone a Bakis topology taken from its transition matrix.  The graph is
-emitted as dense arrays for the TPU forward-backward kernel:
+emitted as dense arrays for the device forward-backward kernel:
 
 - state_sen [S]: senone id of each emitting state
 - edges (esrc [E], edst [E], tmat [E], ti [E], tj [E]): every transition,

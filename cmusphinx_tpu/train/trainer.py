@@ -4,10 +4,10 @@ Capability parity with SphinxTrain's norm + the scripts_pl convergence loop
 (reference: SphinxTrain/src/programs/norm/main.c summing bw accumulator
 dirs and reestimating via gauden_norm_wt_mean/var gauden.c:1568-1795;
 scripts_pl/20.ci_hmm/slave_convg.pl:59-136 likelihood-ratio convergence;
-bw/main.c:464-485 -ckptintv accumulator+cursor checkpointing) — TPU-first:
+bw/main.c:464-485 -ckptintv accumulator+cursor checkpointing) — on devices:
 
 - parts are device shards, not forked jobs: the utterance batch is split
-  over a mesh `dp` axis with shard_map and accumulators psum'd over ICI
+  over a mesh `dp` axis with shard_map and accumulators psum'd across it
   (SURVEY.md §2.10 P1/P2/P8 — the psum IS the `norm` file summation);
 - checkpoints are npz files of the parameter pytree + corpus cursor;
 - flat start (init_gau/mk_flat capability): global mean/variance plus
@@ -166,8 +166,8 @@ class Trainer:
     # ------------------------------------------------------------------
     def em_step_sharded(self, mesh) -> float:
         """Data-parallel EM step over a device mesh: utterances sharded on
-        the 'dp' axis, accumulators psum'd (the TPU-native 'norm over
-        accumulator dirs')."""
+        the 'dp' axis, accumulators psum'd (the collective form of 'norm
+        over accumulator dirs')."""
         from jax.sharding import NamedSharding, PartitionSpec as P
         from jax import shard_map
 

@@ -7,7 +7,7 @@ Capability parity with the reference's transform toolchain:
   sphinxbase feat/lda.c (already in frontend.feat).
 - MLLT: SphinxTrain/python/cmusphinx/mllt.py:34-60 (maximum-likelihood
   linear transform objective optimized with l-bfgs in the reference; here
-  jax autodiff + optax adam — same objective, TPU-native optimizer).
+  jax autodiff + optax adam — same objective, on-device optimizer).
 - MAP adaptation: SphinxTrain/src/programs/map_adapt (Bayesian interpolation
   of prior model with adaptation-data counts).
 - Deleted interpolation: SphinxTrain/src/programs/delint +
@@ -17,7 +17,7 @@ Capability parity with the reference's transform toolchain:
   two mixture-weight sets).
 
 All estimation is dense linear algebra on [D, D]/[S, K] tensors — a natural
-fit for the MXU; everything here is pure and jit-compatible.
+fit for matrix hardware; everything here is pure and jit-compatible.
 """
 
 from __future__ import annotations

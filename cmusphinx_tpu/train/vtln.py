@@ -8,7 +8,7 @@ and keep the argmax-likelihood warp per speaker).  The warp *application*
 lives in frontend/fe.py (fe_warp_{inverse_linear,affine,
 piecewise_linear}.c parity); this module adds the missing *estimation*.
 
-TPU-first shape: candidate warps only change the mel filterbank matrix,
+Batched shape: candidate warps only change the mel filterbank matrix,
 so each warp is one batched frontend+alignment device program; utterances
 of a speaker batch through the shared aligner, and the per-warp totals
 reduce on host (the grid is tiny).

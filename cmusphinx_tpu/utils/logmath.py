@@ -2,8 +2,8 @@
 
 The reference (sphinxbase/src/libsphinxbase/util/logmath.c:62-130) keeps all
 scores as int32 logs in an arbitrary base (default 1.0001) with a precomputed
-log-add table.  On TPU we keep scores in *float* log space (natural log) and
-use `logaddexp` / `logsumexp` — the MXU/VPU make the table pointless.  This
+log-add table.  Here scores stay in *float* log space (natural log) with
+`logaddexp` / `logsumexp` — float arithmetic makes the table pointless.  This
 module provides:
 
 - jnp helpers for float log-space math (`log_add`, `logsumexp` wrappers);

@@ -1,20 +1,13 @@
 """FLOP/byte accounting and MFU (model FLOPs utilization) reporting.
 
-The reference never reports hardware utilization (xRT only, SURVEY §5/§6);
-on TPU the judged perf axis is achieved FLOP/s vs peak, so every hot stage
-gets an analytic FLOP and HBM-byte count here, and evals/mfu_report.py
-divides measured wall time into them (PERF.md "stage | ms | GFLOP | MFU").
+The reference never reports hardware utilization (xRT only, SURVEY §5/§6).
+Every hot stage gets an analytic FLOP and device-memory byte count here, and
+evals/mfu_report.py divides measured wall time into them (PERF.md "stage |
+ms | GFLOP | MFU").
 
-Peak numbers (one TPU v5e chip):
-- bf16 MXU peak: 197 TFLOP/s (public spec).
-- f32 ops on the MXU run as multi-pass bf16 (Precision.HIGHEST ~ 6
-  passes); the *effective* f32 matmul peak is ~1/6 of bf16.  MFU is
-  reported against the bf16 peak (the honest, conservative denominator)
-  with the precision-adjusted utilization alongside.
-- HBM bandwidth: 819 GB/s.  Stages whose arithmetic intensity
-  (FLOP/byte) is below peak_flops/peak_bw ~ 240 are bandwidth-bound; for
-  those the roofline utilization (achieved GB/s / 819) is the meaningful
-  number and is reported too.
+Peaks are keyed by `device_kind` (`jax.devices()[0].device_kind`).  A kind
+the table does not know is an error, never a default; on the CPU there is
+no peak and no MFU is reported.
 """
 
 from __future__ import annotations
@@ -22,34 +15,59 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Optional
 
-V5E_PEAK_BF16 = 197e12      # FLOP/s
-V5E_F32_PASSES = 6          # Precision.HIGHEST bf16-pass count
-V5E_HBM_BW = 819e9          # bytes/s
+
+@dataclass(frozen=True)
+class Peaks:
+    """Dense rates without sparsity, FLOP/s; memory bandwidth, bytes/s."""
+    bf16: float
+    tf32: float
+    fp32: float
+    hbm_bw: float
+    source: str
+
+
+# NVIDIA H100 data sheet (dense rates; the SXM rates assume the 700 W limit).
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": Peaks(989e12, 495e12, 67e12, 3.35e12,
+                                   "NVIDIA H100 data sheet, SXM5"),
+    "NVIDIA H100 PCIe": Peaks(756e12, 378e12, 51e12, 2.0e12,
+                              "NVIDIA H100 data sheet, PCIe"),
+}
+
+
+def device_peaks(device) -> Optional[Peaks]:
+    """Peaks of a JAX device; None on the CPU; KeyError for an accelerator
+    kind the table does not hold."""
+    if device.platform == "cpu":
+        return None
+    try:
+        return PEAKS[device.device_kind]
+    except KeyError:
+        raise KeyError(f"no published peaks for device kind "
+                       f"{device.device_kind!r}; add them to "
+                       f"cmusphinx_tpu/utils/mfu.py PEAKS") from None
 
 
 # ----------------------------------------------------------------------
 # Analytic FLOP counts (multiply-add = 2 FLOPs).
 
 def continuous_gmm_flops(T: int, S: int, K: int, D: int) -> float:
-    """ContinuousScorer / Pallas fused kernel: two [T, D] @ [D, S*K]
-    GEMMs (linear + quadratic term) + the elementwise square, bias and
+    """ContinuousScorer: the [T, 2D] @ [2D, S*K]
+    GEMM (linear + quadratic term) + the elementwise square, bias and
     logsumexp reduction (ops/gmm.py ContinuousScorer)."""
     gemm = 2 * 2.0 * T * D * S * K
     elem = T * D + 3.0 * T * S * K   # x*x, add const, exp+max+sum
     return gemm + elem
 
 
-def continuous_gmm_bytes(T: int, S: int, K: int, D: int,
-                         fused: bool) -> float:
-    """HBM traffic: params + feats + output; the unfused XLA path also
-    round-trips the [T, S*K] density matrix through HBM (the measured
-    reason the Pallas kernel wins, EVALS.md)."""
-    base = 4.0 * (2 * S * K * D + S * K        # lin/quad + const
+def continuous_gmm_bytes(T: int, S: int, K: int, D: int) -> float:
+    """Device-memory traffic: params + feats + output, and the [T, S*K]
+    density matrix written by the GEMM and read back by the
+    log-sum-exp."""
+    return 4.0 * (2 * S * K * D + S * K        # lin/quad + const
                   + 2 * T * D                  # feats + feats^2
-                  + T * S)                     # output
-    if not fused:
-        base += 2 * 4.0 * T * S * K
-    return base
+                  + T * S                      # output
+                  + 2 * T * S * K)             # density round trip
 
 
 def psparity_flops(T: int, n_feat: int, n_density: int,
@@ -68,7 +86,7 @@ def psparity_flops(T: int, n_feat: int, n_density: int,
 
 def viterbi_scan_bytes(T: int, C: int, S: int, B: int = 1,
                        planes: int = 2, n_rcvar: int = 1) -> float:
-    """HBM traffic model of the dense Viterbi scan: per frame the carry
+    """Device-memory traffic model of the dense Viterbi scan: per frame the carry
     planes (alpha + payload, [B, S, C] each) are read+written, the
     pre-expanded senone block is read, and the propagation gathers read
     the exit rows.  4 bytes/element."""
@@ -79,7 +97,7 @@ def viterbi_scan_bytes(T: int, C: int, S: int, B: int = 1,
 
 
 def onehot_scan_flops(T: int, tables_elems: float, B: int = 1) -> float:
-    """One-hot MXU gathers in the small-graph scan cores: each gathered
+    """One-hot matmul gathers in the small-graph scan cores: each gathered
     element costs a dot-product row (ngram_search.py _make_core)."""
     return 2.0 * T * B * tables_elems
 
@@ -93,25 +111,22 @@ class Stage:
     bytes: float = 0.0
     note: str = ""
 
-    @property
-    def mfu(self) -> float:
-        return self.flops / max(self.seconds, 1e-12) / V5E_PEAK_BF16
 
-    @property
-    def bw_util(self) -> float:
-        return self.bytes / max(self.seconds, 1e-12) / V5E_HBM_BW
-
-
-def report(stages: List[Stage]) -> str:
-    """Markdown table: stage | ms | GFLOP | MFU (bf16 peak) |
-    f32-pass-adj | GB | HBM util."""
-    out = ["| stage | ms | GFLOP | MFU(bf16 peak) | x6 f32-adj | GB | "
-           "HBM util |",
-           "|---|---|---|---|---|---|---|"]
+def report(stages: List[Stage], peaks: Optional[Peaks]) -> str:
+    """Markdown table: stage | ms | GFLOP | GB, plus MFU against the bf16
+    and fp32 peaks and memory-bandwidth utilization when `peaks` is given
+    (an accelerator); without peaks (the CPU) no utilization is printed."""
+    head = "| stage | ms | GFLOP | GB |"
+    if peaks:
+        head += " MFU (bf16 peak) | MFU (fp32 peak) | HBM util |"
+    out = [head, "|" + "---|" * (head.count("|") - 1)]
     for s in stages:
-        out.append(
-            f"| {s.name} | {s.seconds * 1e3:.2f} | {s.flops / 1e9:.2f} | "
-            f"{100 * s.mfu:.2f}% | {100 * s.mfu * V5E_F32_PASSES:.1f}% | "
-            f"{s.bytes / 1e9:.2f} | {100 * s.bw_util:.1f}% |"
-            + (f" {s.note}" if s.note else ""))
+        dt = max(s.seconds, 1e-12)
+        row = (f"| {s.name} | {s.seconds * 1e3:.2f} | {s.flops / 1e9:.2f} | "
+               f"{s.bytes / 1e9:.2f} |")
+        if peaks:
+            row += (f" {100 * s.flops / dt / peaks.bf16:.3f}% |"
+                    f" {100 * s.flops / dt / peaks.fp32:.2f}% |"
+                    f" {100 * s.bytes / dt / peaks.hbm_bw:.1f}% |")
+        out.append(row + (f" {s.note}" if s.note else ""))
     return "\n".join(out)

@@ -5,7 +5,7 @@ Reference: sphinxbase/include/sphinxbase/profile.h:95-205 — `ptmr_t`
 used for xRT reporting in batch.c:759-777) and `pctr_t` named counters
 (active senones/HMMs/words per frame, ngram_search.h:182 stats).
 
-TPU adaptation: timers optionally synchronize the device (block_until_ready)
+Device adaptation: timers optionally synchronize the device (block_until_ready)
 so device work is attributed to the interval that launched it.
 """
 

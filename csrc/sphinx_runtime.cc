@@ -1,7 +1,7 @@
 // Native host runtime for cmusphinx_tpu: lm3g trigram scoring core +
 // word-lattice results layer (bestpath / posterior / A* N-best).
 //
-// The TPU owns the per-frame compute (senone scoring, Viterbi token passing,
+// The device owns the per-frame compute (senone scoring, Viterbi token passing,
 // Baum-Welch); this library owns the pointer-chasing host graph algorithms
 // that the reference also keeps native:
 //   - lm3g CSR binary-search scoring  (reference: sphinxbase

@@ -1,9 +1,9 @@
-"""Training-throughput benchmark (VERDICT r4 #4): Baum-Welch at
-production model size — frames/sec/chip, MFU, and data-parallel scaling
-efficiency of the psum-reduced EM step.
+"""Training-throughput benchmark: Baum-Welch at production model size —
+frames/sec per device, FLOP rate, and the collective share of the
+psum-reduced data-parallel EM step.
 
 Model: synthetic hub4-class 5,000 senones x 32 Gaussians (the repo's
-shipped corpora top out at 335 senones, EVALS.md); observations are REAL
+shipped corpora top out at 335 senones); observations are REAL
 tidigits feature frames tiled to utterance length so the densities see
 speech statistics, with synthetic linear-chain sentence HMMs of
 hub4-transcript size.  The restructured forward_backward (train/bw.py
@@ -11,10 +11,11 @@ state_logliks: per-state gathered params + GEMM accumulation) makes this
 size feasible — the old all-senone form would materialize [T, 5000, 32]
 per utterance.
 
-    python evals/bench_training.py              # single-chip throughput+MFU
+    python evals/bench_training.py              # one-device throughput
     python evals/bench_training.py --scaling    # 1->8 virtual-device CPU
-                                                # mesh efficiency (SURVEY §4
-                                                # multi-node testing)
+                                                # mesh collective share
+                                                # (SURVEY §4 multi-node
+                                                # testing)
 """
 
 import argparse
@@ -132,7 +133,6 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax
     import jax.numpy as jnp
-    jax.device_get(jnp.zeros(()))
     from cmusphinx_tpu.train.bw import forward_backward
     from cmusphinx_tpu.utils import mfu
 
@@ -159,23 +159,19 @@ def main():
     dt = sorted(ts)[len(ts) // 2]
     frames = args.B * args.T
     fl = bw_flops(args.B, args.T, Smax, K, D, n_edges)
-    st = mfu.Stage("BW fwd-bwd+accum (5k sen x 32 gau)", dt, fl,
-                   8.0 * args.B * args.T * Smax * K * 4)
+    peaks = mfu.device_peaks(jax.devices()[0])
     print(f"\nsteady {dt * 1e3:.1f} ms/step = {frames / dt:,.0f} "
-          f"frames/sec/chip ({frames / dt / 100:,.0f}x RT audio)")
-    print(f"FLOPs {fl / 1e9:.1f} GFLOP -> {fl / dt / 1e12:.2f} TFLOP/s = "
-          f"{100 * st.mfu:.2f}% MFU (bf16 peak; x{mfu.V5E_F32_PASSES} "
-          f"= {100 * st.mfu * mfu.V5E_F32_PASSES:.1f}% f32-pass-adjusted)")
+          f"frames/sec/device ({frames / dt / 100:,.0f}x RT audio)")
+    print(f"FLOPs {fl / 1e9:.1f} GFLOP -> {fl / dt / 1e12:.2f} TFLOP/s"
+          + (f" = {100 * fl / dt / peaks.fp32:.2f}% of the fp32 peak"
+             if peaks else ""))
 
     if args.scaling:
         # Virtual CPU devices share the host's cores, so dp wall-clock
         # cannot show real speedup here (SURVEY §4: virtual-mesh testing
-        # validates the CONTRACT; speed belongs to real chips).  What CAN
-        # be measured is the collective's share of the step — the term
-        # that bounds scaling efficiency: run dp=8 with the accumulator
-        # psum on vs off, then project v5e-8 efficiency from the
-        # single-chip compute time + the ICI all-reduce cost model
-        # (2 x bytes / ICI bw, scaling-book recipe).
+        # validates the CONTRACT; speed belongs to real devices).  What CAN
+        # be measured is the collective's share of the step: run dp=8
+        # with the accumulator psum on vs off.
         from jax.sharding import Mesh
         from jax import shard_map
         from jax.sharding import PartitionSpec as P
@@ -216,20 +212,11 @@ def main():
         print(f"\ndp={ndp} virtual mesh: step {times[True]*1e3:.0f} ms "
               f"with psum, {times[False]*1e3:.0f} ms without -> "
               f"collective share {100*share:.1f}% (host-emulated upper "
-              "bound; real ICI is far faster than host memcpy)")
-        acc_bytes = 4.0 * (N_SEN * K * (2 * D + 1)
-                           + N_TMAT * N_STATE * (N_STATE + 1))
-        ici_bw = 45e9  # v5e per-link ICI, one direction
-        ar = 2.0 * acc_bytes / ici_bw
-        comp = 0.083  # measured single-chip step (B=16, T=500), seconds
-        print(f"v5e-8 projection: accumulators {acc_bytes/1e6:.0f} MB, "
-              f"ring all-reduce ~{ar*1e3:.1f} ms vs {comp*1e3:.0f} ms "
-              f"compute/step -> expected dp=8 efficiency "
-              f"~{100*comp/(comp+ar):.0f}% (scaling-book all-reduce "
-              "model; accumulator traffic is independent of corpus size, "
-              "so efficiency rises with per-chip batch)")
+              "bound; device links are far faster than host memcpy)")
     return 0
 
 
 if __name__ == "__main__":
+    from cmusphinx_tpu.utils.compile_cache import init_compile_cache
+    init_compile_cache()
     sys.exit(main())

@@ -1,6 +1,6 @@
 """Shared helper: train + export a CD-tied CONTINUOUS tidigits model.
 
-Used by run_pallas_e2e.py and run_approx_gmm.py so both benches run on the
+Used by run_approx_gmm.py so its bench runs on the
 same repo-trained acoustic model (CI -> CD-untied -> dtree tying ->
 CD-tied -> mixture splitting; SURVEY.md §2.4 pipeline capability)."""
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python
 """Regenerate EVALS.md — the committed evaluation ledger.
 
-One table per task, WER + xRT + config, regenerated end-to-end on the real
-chip so the numbers never live only in commit messages.  Covers:
+One table per task, WER + xRT + config, regenerated end-to-end on the
+device wherever the reference tree (shipped models and test audio) is
+available.  Covers:
 
 - tidigits N-gram batch decode (the bench.py config) + rcmode comparison
   (fanout vs composite cross-word right contexts)
@@ -113,7 +114,7 @@ def sec_tidigits(out):
                "table is the measured cost of that approximation "
                f"({oks['fanout']}/31 vs {oks['composite']}/31 sentences "
                "here).  `bench.py` asserts 31/31 with the defaults every "
-               "run (see BENCH_r*.json for the tracked xRT ledger).")
+               "run.")
     out.append("")
 
 
@@ -251,9 +252,8 @@ def sec_bplw_sweep(out, ctx, results):
     out.append("The reference script's 11.5 (wsj1_test5k.sh) presumes the "
                "real WSJ trigram; with the data-poor n800 LM heavier "
                "weights amplify LM error.  Round-3's miscalibrated default "
-               "(11.5) plus a finish-word double-count was the measured "
-               "WER degradation the round-3 review flagged; both are fixed "
-               "(see PERF.md §5).")
+               "(11.5) plus a finish-word double-count degraded WER; both "
+               "are fixed.")
     out.append("")
 
 
@@ -319,15 +319,12 @@ def sec_error_analysis(out, ctx, results):
 
 
 def sec_wsj_tree(out, ctx):
-    """Tree vs flat lexicon at 5k (replaces the hand-maintained r5 table)."""
+    """Tree vs flat lexicon at 5k."""
     out.append("## WSJ 5k tree vs flat lexicon")
     out.append("")
     out.append("Same 5k setup as above; the prefix-shared tree carries "
-               "the r5 per-history bigram lookahead smear "
-               "(ngram_search.py _setup_tree_bgla, PERF.md §8), which "
-               "closed the r4 delayed-LM gap — the tree now matches or "
-               "beats the flat lexicon on BOTH axes (r4: tree lost "
-               "4.55% vs 0.00% on tri and 32.58% vs 31.82% on n800).")
+               "the per-history bigram lookahead smear "
+               "(ngram_search.py _setup_tree_bgla).")
     out.append("")
     out.append("| lexicon | LM | WER | steady xRT |")
     out.append("|---|---|---|---|")
@@ -420,23 +417,17 @@ def sec_wsj60k(out):
         print(out[-1], flush=True)
         del search
     out.append("")
-    out.append("- No OOM at either layout (tree tables ~47 MB HBM, flat "
-               "~100 MB; scan carry 18/40 MB).")
-    out.append("- The tree (prefix-shared channels, delayed exact-trigram "
-               "at exit) is the faster layout; since r5 its channels "
-               "carry a per-re-entry-history BIGRAM lookahead smear on "
-               "top of the static unigram smear (cancelled exactly at "
-               "the exit readout — ngram_search.py _setup_tree_bgla, "
-               "PERF.md §8), which closed the r4 delayed-LM accuracy gap "
-               "(tree 9.09% -> 2.27% at 123k).  Both layouts decode 123k "
-               "words well above real time on one chip vs the "
-               "reference's 0.33x RT at 60k.")
+    out.append("- The tree layout (prefix-shared channels, delayed "
+               "exact-trigram at exit) carries a per-re-entry-history "
+               "BIGRAM lookahead smear on top of the static unigram smear, "
+               "cancelled exactly at the exit readout (ngram_search.py "
+               "_setup_tree_bgla).  The reference runs 60k words at 0.33x "
+               "RT.")
     out.append("- `big` = the tri LM inflated to 2M bigrams + 3.2M "
                "trigrams with ballast entries at -25 nats (the sphinx4 "
                "LargeTrigramModel-class regime): scores and hypotheses "
                "stay those of the real LM while every lookup runs through "
-               "the hashed HBM point-lookup backend — large-LM lookups "
-               "cost ~3% of decode time.")
+               "the hashed device point-lookup backend.")
     out.append("")
 
 
@@ -452,7 +443,6 @@ def main():
 
     import jax
     import jax.numpy as jnp
-    jax.device_get(jnp.zeros(()))
 
     git_rev = subprocess.run(["git", "rev-parse", "--short", "HEAD"],
                              capture_output=True, text=True,
@@ -512,4 +502,6 @@ def main():
 
 
 if __name__ == "__main__":
+    from cmusphinx_tpu.utils.compile_cache import init_compile_cache
+    init_compile_cache()
     sys.exit(main())

@@ -1,8 +1,9 @@
-"""MFU / roofline report for the hot stages (VERDICT r4 #3).
+"""MFU / roofline report for the hot stages.
 
-Measures each stage's wall time on the real chip and divides it into the
+Measures each stage's wall time on the device and divides it into the
 analytic FLOP/byte counts from cmusphinx_tpu/utils/mfu.py; prints the
-PERF.md "stage | ms | GFLOP | MFU" table.
+"stage | ms | GFLOP | MFU" table against the device's published peaks
+(no utilization on the CPU).
 
     python evals/mfu_report.py [--cpu]
 """
@@ -38,7 +39,6 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax
     import jax.numpy as jnp
-    jax.device_get(jnp.zeros(()))
 
     from cmusphinx_tpu.decode import NgramSearch
     from cmusphinx_tpu.frontend.fe import FE_ARGS
@@ -86,7 +86,7 @@ def main():
     stages.append(mfu.Stage("senone scoring (s2 parity 8-bit, T=%d)" % T,
                             dt, fl, by))
 
-    # --- 2. continuous GMM GEMMs at hub4 scale, dense vs pallas ---
+    # --- 2. continuous GMM GEMM at hub4 scale, per -gmmprec mode ---
     rng = np.random.RandomState(0)
     S_, K_, D_ = 5150, 32, 39
     means = rng.randn(S_, 1, K_, D_).astype(np.float32)
@@ -98,30 +98,22 @@ def main():
     Xc = jnp.asarray(rng.randn(5395, D_).astype(np.float32))
     Tc = int(Xc.shape[0])
     fl = mfu.continuous_gmm_flops(Tc, S_, K_, D_)
-    for fused in (False, True):
-        for precision in ("highest", "high", "bf16"):
-            try:
-                cs = ContinuousScorer(gp, lnw, use_pallas=fused,
-                                      precision=precision)
-                f = jax.jit(cs.score)
-                dt = timeit(lambda: f(Xc))
-                by = mfu.continuous_gmm_bytes(Tc, S_, K_, D_, fused)
-                if precision == "bf16":  # params are half-width
-                    by -= 2.0 * D_ * S_ * K_ * 2
-                stages.append(mfu.Stage(
-                    "cont GMM %s %s (S=5150 K=32)"
-                    % ("pallas" if fused else "dense", precision),
-                    dt, fl, by))
-            except Exception as e:
-                print(f"(continuous {fused=} {precision=} skipped: {e})")
+    for precision in ("highest", "high", "bf16"):
+        f = jax.jit(ContinuousScorer(gp, lnw, precision=precision).score)
+        dt = timeit(lambda: f(Xc))
+        by = mfu.continuous_gmm_bytes(Tc, S_, K_, D_)
+        if precision == "bf16":  # params are half-width
+            by -= 2.0 * D_ * S_ * K_ * 2
+        stages.append(mfu.Stage(
+            "cont GMM %s (S=5150 K=32)" % precision, dt, fl, by))
 
     # --- 3. tidigits headline decode (fused cep->decode) ---
     search = NgramSearch(lm, d, mdef, tmat, scorer)
     search.decode_batch_cep(ceps, fp)
     dt = timeit(lambda: search.decode_batch_cep(ceps, fp), reps=5)
     gr = search.graph
-    # model FLOPs = senone scoring; the one-hot MXU gathers of the scan
-    # are search bookkeeping riding the MXU, counted separately.
+    # model FLOPs = senone scoring; the one-hot matmul lookups of the scan
+    # are search bookkeeping, counted separately.
     Tpad = sum(-(-len(c) // search.FRAME_BUCKET) * search.FRAME_BUCKET
                for c in [max(ceps, key=len)]) * 0 + \
         -(-max(len(c) for c in ceps) // search.FRAME_BUCKET) * \
@@ -135,15 +127,17 @@ def main():
         % (audio_s, audio_s / dt), dt, fl, by,
         note="model FLOPs = senone GEMMs"))
 
+    dev = jax.devices()[0]
+    peaks = mfu.device_peaks(dev)
     print()
-    print(mfu.report(stages))
+    print(mfu.report(stages, peaks))
     print()
-    print("peaks: bf16 %.0f TFLOP/s, HBM %.0f GB/s; f32 matmuls run as "
-          "~%d bf16 passes (Precision.HIGHEST)"
-          % (mfu.V5E_PEAK_BF16 / 1e12, mfu.V5E_HBM_BW / 1e9,
-             mfu.V5E_F32_PASSES))
+    print(f"device: {dev.device_kind}"
+          + (f"; peaks from {peaks.source}" if peaks else ""))
     return 0
 
 
 if __name__ == "__main__":
+    from cmusphinx_tpu.utils.compile_cache import init_compile_cache
+    init_compile_cache()
     sys.exit(main())

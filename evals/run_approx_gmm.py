@@ -1,11 +1,11 @@
 #!/usr/bin/env python
 """Approximate-GMM verdict bench: measure each reference fast-GMM trick
-on TPU against the dense baseline, on the repo-trained CD-tied continuous
-tidigits model (same model as run_pallas_e2e.py).
+on the device against the dense baseline, on the repo-trained CD-tied
+continuous tidigits model (evals/cd_tidigits.py).
 
 Reference layer: sphinx3 approx_cont_mgau.c:108-276 (ds_ratio frame
 downsampling, CIGMMS CI-driven CD bypass, subvq shortlists).  The claim
-to test: on TPU the dense evaluation is a pair of GEMMs, so shortlist
+to test: on the device the dense evaluation is a pair of GEMMs, so shortlist
 bookkeeping mostly costs accuracy without buying speed — except frame
 downsampling, which removes whole frames of GEMM work.
 
@@ -38,7 +38,6 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax
     import jax.numpy as jnp
-    jax.device_get(jnp.zeros(()))
 
     from cmusphinx_tpu.decode import NgramSearch
     from cmusphinx_tpu.ops.approx import CigmmsScorer, DownsampledScorer
@@ -51,7 +50,7 @@ def main():
     print(f"model: {S} senones x {K} Gaussians, "
           f"{mdef.n_ci_sen} CI senones", flush=True)
 
-    dense = ContinuousScorer(g, lnw, use_pallas=False)
+    dense = ContinuousScorer(g, lnw)
     variants = [
         ("dense (baseline)", dense),
         ("ds_ratio=2", DownsampledScorer(dense, 2)),
@@ -130,4 +129,6 @@ def main():
 
 
 if __name__ == "__main__":
+    from cmusphinx_tpu.utils.compile_cache import init_compile_cache
+    init_compile_cache()
     sys.exit(main())

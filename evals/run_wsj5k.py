@@ -211,4 +211,6 @@ def main():
 
 
 if __name__ == "__main__":
+    from cmusphinx_tpu.utils.compile_cache import init_compile_cache
+    init_compile_cache()
     sys.exit(main())

@@ -85,7 +85,7 @@ def test_gs_selector_shortlist_semantics():
     gp = GaussianParams(means=means, var=var, prec=prec, lrd=lrd,
                         veclen=[D], n_mgau=S, n_feat=1, n_density=K)
     lw = np.log(np.full((S, K), 1.0 / K, np.float32))
-    dense = ContinuousScorer(gp, lw, use_pallas=False)
+    dense = ContinuousScorer(gp, lw)
     x = jnp.asarray(rng.randn(20, D).astype(np.float32))
     gs_all = GsSelectorScorer(dense, gp, n_clusters=8, top_c=8)
     np.testing.assert_allclose(np.asarray(gs_all.score(x)),
@@ -116,7 +116,7 @@ def test_kdtree_selector_semantics():
     gp = GaussianParams(means=means, var=var, prec=prec, lrd=lrd,
                         veclen=[D], n_mgau=S, n_feat=1, n_density=K)
     lw = np.log(np.full((S, K), 1.0 / K, np.float32))
-    dense = ContinuousScorer(gp, lw, use_pallas=False)
+    dense = ContinuousScorer(gp, lw)
     x = jnp.asarray(rng.randn(30, D).astype(np.float32))
 
     kd_all = KdTreeSelectorScorer(dense, gp, depth=3, radius=1e6)

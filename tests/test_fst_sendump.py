@@ -6,8 +6,6 @@ import os
 import numpy as np
 import pytest
 
-R = "/root/reference/pocketsphinx"
-
 
 def test_sendump_roundtrip_8bit(tmp_path):
     from cmusphinx_tpu.models.sendump import read_sendump, write_sendump
@@ -40,24 +38,28 @@ def test_sendump_roundtrip_4bit(tmp_path):
     assert np.abs(-back.astype(np.float32) * scale - lnw).max() < 1.5
 
 
-def test_shipped_sendump_reexport():
-    """Round-trip the shipped tidigits sendump through write+read."""
-    import tempfile
+def test_shipped_sendump_reexport(seeded_tiny, tmp_path):
+    """Round-trip a model's sendump (the seeded semi-continuous one)
+    through write+read."""
     from cmusphinx_tpu.models.sendump import read_sendump, write_sendump
 
-    lnw = read_sendump(R + "/model/hmm/en/tidigits/sendump")
-    with tempfile.TemporaryDirectory() as td:
-        p = os.path.join(td, "sendump")
-        write_sendump(p, lnw, n_bits=8)
-        back = read_sendump(p)
-    np.testing.assert_allclose(back, lnw, atol=0.11)
+    lnw = read_sendump(os.path.join(seeded_tiny.sc, "sendump"))
+    p = str(tmp_path / "sendump")
+    write_sendump(p, lnw, n_bits=8)
+    np.testing.assert_allclose(read_sendump(p), lnw, atol=0.11)
 
 
 def test_fsg_fst_export(tmp_path):
     from cmusphinx_tpu.models.fsg import FsgModel
     from cmusphinx_tpu.models.fst import read_fst, write_fsg_fst
 
-    fsg = FsgModel.read(R + "/test/data/goforward.fsg")
+    src = tmp_path / "goforward.fsg"
+    src.write_text(
+        "FSG_BEGIN goforward\nNUM_STATES 5\nSTART_STATE 0\n"
+        "FINAL_STATE 4\nTRANSITION 0 1 1.0 go\nTRANSITION 1 2 0.5 forward\n"
+        "TRANSITION 1 2 0.5 back\nTRANSITION 2 3 1.0 ten\n"
+        "TRANSITION 3 4 0.7 meters\nTRANSITION 3 4 0.3\nFSG_END\n")
+    fsg = FsgModel.read(str(src))
     p = str(tmp_path / "g.fst.txt")
     write_fsg_fst(fsg, p, symfile=str(tmp_path / "g.syms"))
     arcs, finals = read_fst(p)
@@ -67,13 +69,13 @@ def test_fsg_fst_export(tmp_path):
     assert "forward" in labels or "FORWARD" in labels
 
 
-def test_dict_fst_export(tmp_path):
+def test_dict_fst_export(seeded_tiny, tmp_path):
     from cmusphinx_tpu.models.dict import Dictionary
     from cmusphinx_tpu.models.fst import read_fst, write_dict_fst
     from cmusphinx_tpu.models.mdef import Mdef
 
-    mdef = Mdef.read(R + "/model/hmm/en/tidigits/mdef")
-    d = Dictionary.read(R + "/model/lm/en/tidigits.dic", mdef)
+    mdef = Mdef.read(os.path.join(seeded_tiny.sc, "mdef"))
+    d = Dictionary.read(seeded_tiny.digits_dic, mdef)
     p = str(tmp_path / "d.fst.txt")
     write_dict_fst(d, p, isymfile=str(tmp_path / "d.isyms"),
                    osymfile=str(tmp_path / "d.osyms"))
@@ -87,12 +89,12 @@ def test_dict_fst_export(tmp_path):
     assert len(outs) >= d.n_word - 4  # fillers w/ empty pron excluded
 
 
-def test_lm_fst_export_scores_match(tmp_path):
+def test_lm_fst_export_scores_match(seeded_tiny, tmp_path):
     """FST path weights equal LM scores for in-vocabulary trigram paths."""
     from cmusphinx_tpu.models.fst import read_fst, write_lm_fst
     from cmusphinx_tpu.models.ngram import NgramModel
 
-    lm = NgramModel.read(R + "/model/lm/en/tidigits.DMP")
+    lm = NgramModel.read(seeded_tiny.digits_lm)
     p = str(tmp_path / "lm.fst.txt")
     write_lm_fst(lm, p, symfile=str(tmp_path / "lm.syms"))
     arcs, finals = read_fst(p)
@@ -131,14 +133,14 @@ def test_lm_fst_export_scores_match(tmp_path):
     assert abs(got - want) < 1e-3
 
 
-def test_am_fst_export(tmp_path):
-    """AM (HMM-level) FST export for tidigits: senone-in/phone-out chains
-    per phone (sphinx_am_fst capability; reference binary is a stub)."""
+def test_am_fst_export(seeded_tiny, tmp_path):
+    """AM (HMM-level) FST export: senone-in/phone-out chains per phone
+    (sphinx_am_fst capability; reference binary is a stub)."""
     from cmusphinx_tpu.models import Mdef, TransitionMatrices
     from cmusphinx_tpu.models.fst import read_fst, write_am_fst
-    H = "/root/reference/pocketsphinx/model/hmm/en/tidigits"
-    mdef = Mdef.read(H + "/mdef")
-    tmat = TransitionMatrices.read(H + "/transition_matrices")
+    mdef = Mdef.read(os.path.join(seeded_tiny.sc, "mdef"))
+    tmat = TransitionMatrices.read(
+        os.path.join(seeded_tiny.sc, "transition_matrices"))
     p = str(tmp_path / "am.fst")
     write_am_fst(mdef, tmat, p, isymfile=str(tmp_path / "am.isym"),
                  osymfile=str(tmp_path / "am.osym"))

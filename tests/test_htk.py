@@ -127,7 +127,7 @@ def test_htk_convert_and_load(tmp_path):
     assert tmat.check_bakis()
     assert g.n_mgau == m.n_sen and g.n_density == 2
     # Continuous scorer runs on the converted model.
-    sc = ContinuousScorer(g, lnw[0].T, use_pallas=False)
+    sc = ContinuousScorer(g, lnw[0].T)
     scores = np.asarray(sc.score(np.zeros((3, 4), np.float32)))
     assert scores.shape == (3, m.n_sen)
     assert np.isfinite(scores).all()

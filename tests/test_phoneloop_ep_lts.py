@@ -3,12 +3,9 @@
 import numpy as np
 import pytest
 
-R = "/root/reference/pocketsphinx"
-H = R + "/model/hmm/en/tidigits"
-
 
 @pytest.fixture(scope="module")
-def tidigits():
+def tidigits(reference_root):
     from cmusphinx_tpu.models import Mdef, TransitionMatrices, read_sendump
     from cmusphinx_tpu.models.gauden import read_gauden
     from cmusphinx_tpu.ops.gmm import SemiContinuousScorer
@@ -16,6 +13,7 @@ def tidigits():
     from cmusphinx_tpu.frontend.feat import FEAT_ARGS, FeatPipeline
     from cmusphinx_tpu.utils.config import Config
 
+    H = str(reference_root / "pocketsphinx/model/hmm/en/tidigits")
     mdef = Mdef.read(H + "/mdef")
     g = read_gauden(H + "/means", H + "/variances")
     w = read_sendump(H + "/sendump")
@@ -27,12 +25,13 @@ def tidigits():
     return mdef, tmat, scorer, fp
 
 
-def test_phone_loop_scores_and_mask(tidigits):
+def test_phone_loop_scores_and_mask(tidigits, reference_root):
     from cmusphinx_tpu.decode.phone_loop import PhoneLoopSearch
     from cmusphinx_tpu.utils.bio import read_mfc
 
     mdef, tmat, scorer, fp = tidigits
-    mfc = read_mfc(R + "/test/data/tidigits/man.ah.111a.mfc")
+    mfc = read_mfc(str(reference_root / "pocketsphinx/test/data/tidigits/"
+                       "man.ah.111a.mfc"))
     feats = fp.compute(mfc)
     pl = PhoneLoopSearch(mdef, tmat, scorer)
     ph = pl.phone_scores(feats)
@@ -108,10 +107,10 @@ def test_lts_learns_simple_rules():
         assert m2.predict("BAT") == ["B", "AE", "T"]
 
 
-def test_lts_on_cmudict_sample():
+def test_lts_on_cmudict_sample(reference_root):
     from cmusphinx_tpu.models.lts import read_cmudict, LtsModel
 
-    entries = read_cmudict("/root/reference/cmudict/cmudict.0.7a",
+    entries = read_cmudict(str(reference_root / "cmudict/cmudict.0.7a"),
                            max_words=4000)
     assert len(entries) > 3000
     m = LtsModel.train(entries[:3500], k=3, em_iters=2)

@@ -59,7 +59,7 @@ def test_build_roundtrip_and_scorer(tmp_path):
     from cmusphinx_tpu.ops.gmm import ContinuousScorer
     import jax.numpy as jnp
     lnw = np.log(rng.dirichlet(np.ones(K), size=S)).astype(np.float32)
-    exact = ContinuousScorer(g, lnw, use_pallas=False)
+    exact = ContinuousScorer(g, lnw)
     approx = SubVQScorer(svq, lnw)
     x = jnp.asarray(rng.randn(8, D).astype(np.float32))
     a = np.asarray(exact.score(x))
